@@ -2,9 +2,8 @@
 """Scenario-parallel scaling-efficiency harness.
 
 Measures scans/s of the vmapped+sharded tracker step for growing device
-counts on the available mesh (virtual CPU devices by default — the
-methodology transfers unchanged to a real multi-chip slice; with one
-attached TPU the driver records single-chip numbers from bench.py).
+counts on the available mesh (virtual CPU devices by default, so the
+rates are CPU rates; SCALING_CPU=0 runs on the real devices).
 
 Prints one JSON line per mesh size plus a summary efficiency line.
 """
@@ -34,6 +33,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
 
 
 def main():
+    from pymht_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     from pymht_tpu.core.config import TrackerShapes, TrackerParams
     from pymht_tpu.parallel import montecarlo as mc
     from pymht_tpu.parallel.scenario import batch_states, make_batched_step

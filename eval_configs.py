@@ -4,7 +4,7 @@
 Runs scaled versions of the five benchmark configs and prints one JSON
 line per config with tracking metrics (rms, coverage, track loss, false
 tracks) plus the selection-gap certificate.  Scale via EVAL_SCALE=full
-for the full-size configs (TPU recommended).
+for the full-size configs (GPU recommended).
 
   1. 2-target crossing, no clutter, P_d=1
   2. 10 targets, clutter, P_d=0.9
@@ -119,6 +119,8 @@ def run_montecarlo(name, batch, n_targets, n_scans=10):
 
 
 def main():
+    from pymht_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     small = dict(max_targets=16, max_leaves=32, max_meas=64, max_ais=4,
                  window=7, max_prelim=16, max_initiators=64)
     # max_prelim sized to the 50-target confirm-from-empty burst: 32

@@ -17,6 +17,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from pymht_tpu import Tracker, TrackerShapes, TrackerParams  # noqa: E402
 from pymht_tpu.utils import simulator as sim                  # noqa: E402
+from pymht_tpu.utils.runtime import enable_compile_cache       # noqa: E402
 from pymht_tpu.utils import plotting, xml_io                  # noqa: E402
 
 
@@ -28,6 +29,7 @@ def main():
     ap.add_argument('--clutter', type=float, default=2e-6)
     ap.add_argument('--out', default='.')
     args = ap.parse_args()
+    enable_compile_cache()
 
     period, radar_range = 2.5, 1000.0
     shapes = TrackerShapes(max_targets=32, max_leaves=32, max_meas=64,

@@ -1,4 +1,4 @@
-"""pymht_tpu — TPU-native track-oriented multi-hypothesis tracking.
+"""pymht_tpu — track-oriented multi-hypothesis tracking in JAX.
 
 Public API:
 

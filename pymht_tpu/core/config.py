@@ -54,16 +54,6 @@ class TrackerShapes:
     # hundreds of metres at swarm densities).  Targets the O(T*M) grow
     # wall past the 2048-target saturation knee (round-4 verdict #4).
     radar_cand_width: int = 0
-    # Pre-gate selection op: with True the nearest-Km reduction uses
-    # jax.lax.approx_min_k (TPU-optimized partial reduce) instead of
-    # lax.top_k — measured 59 -> 15 ms for the dist+select+gather chain
-    # at [8192, 16384] (tools/bisect_grow_pregate.py).  Recall misses
-    # only affect BOUNDARY candidates (the Km-th-nearest neighbourhood,
-    # hundreds of metres out); gated measurements are the extreme row
-    # minima and are found with probability ~1 — verified
-    # decision-identical at swarm scale (same coverage/rms/oracle gap,
-    # SWARM_r05.json).  Exact top_k remains via False.
-    pregate_approx: bool = True
 
     def __post_init__(self):
         assert self.window >= 2

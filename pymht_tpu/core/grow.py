@@ -1,6 +1,6 @@
 """Hypothesis-forest growth: one scan's spawn/gate/score, fully batched.
 
-This is the TPU replacement for the reference's per-target Python loop
+This is the batched replacement for the reference's per-target Python loop
 (_growTarget + _processLeafNodes + spawnNewNodes,
 /root/reference/pymht/tracker.py:309-415, pyTarget.py:227-295): predict
 all leaves of all targets, gate them against all measurements, score
@@ -99,8 +99,8 @@ def _ais_candidates(state, scan, ais, params, G=None, n_targets=None,
     """Two-stage AIS+radar fusion candidates (tracker.py:417-552).
 
     Production path: the scalar-plane formulation in ops.ais_fused
-    (XLA-fusable, ~8 ms/scan cheaper at bench shapes than the einsum
-    chains below, which remain as the readable parity oracle —
+    (one fusable elementwise DAG instead of the einsum chains below,
+    which remain as the readable parity oracle —
     tests/test_ais_fused.py asserts equivalence)."""
     from ..ops.ais_fused import ais_candidates_planes
     T, L = state.leaf_mask.shape
@@ -224,7 +224,6 @@ def grow(state: TrackerState,
          ais: Optional[AisBatch],
          shapes: TrackerShapes,
          params: TrackerParams,
-         use_gate_kernel: Optional[bool] = None,
          n_targets_global: Optional[jnp.ndarray] = None) -> GrowOutputs:
     """Advance every target's hypothesis forest by one scan.
 
@@ -234,28 +233,14 @@ def grow(state: TrackerState,
     T, L, W = state.hist_meas.shape
     M = shapes.max_meas
 
-    A_mat = pv.Phi(scan.time - state.time)
-    Q_mat = pv.Q(scan.time - state.time)
-    C = pv.C_RADAR
-    R = pv.R_RADAR()
-
-    if use_gate_kernel is None:
-        # Settled by on-TPU A/B (tools/gate_kernel_ab_r3.json): the
-        # XLA-fused path beats the Mosaic kernel by ~30% at bench shapes
-        # (3.19 vs 4.14 ms/grow, device-resident timing), so it is the
-        # unconditional default.  The kernel remains available via this
-        # explicit argument for A/B reruns (tools/bench_gate_kernel.py)
-        # and parity tests.
-        use_gate_kernel = False
-
     # --- spatial pre-gate (shapes.radar_cand_width, round-5) ---------
     # Each target's candidate planes run over only its Km nearest
     # measurements (by distance to the selected leaf's prediction).
     # ONE input-side top_k + z gather; every downstream plane and the
     # beam top_k shrink by M/Km.  See config.py for the approximation
-    # contract; tools/bisect_swarm.py BISECT_PREGATE for the A/B.
+    # contract.
     Km = shapes.radar_cand_width
-    pregate = (not use_gate_kernel) and 0 < Km < M
+    pregate = 0 < Km < M
     if pregate:
         tb0 = jnp.arange(T)
         sel0 = jnp.clip(state.sel_leaf, 0, L - 1)
@@ -266,14 +251,8 @@ def grow(state: TrackerState,
         d2 = ((scan.z[None, :, 0] - px[:, None]) ** 2
               + (scan.z[None, :, 1] - py[:, None]) ** 2)             # [T,M]
         d2 = jnp.where(scan.mask[None, :], d2, jnp.inf)
-        if shapes.pregate_approx:
-            # TPU-optimized partial reduce: ~4x cheaper than lax.top_k
-            # at [8192, 16384] (see config.pregate_approx contract)
-            dvals, zidx = jax.lax.approx_min_k(d2, Km)               # [T,Km]
-            valid_k = jnp.isfinite(dvals)
-        else:
-            negd, zidx = jax.lax.top_k(-d2, Km)
-            valid_k = jnp.isfinite(negd)
+        negd, zidx = jax.lax.top_k(-d2, Km)                          # [T,Km]
+        valid_k = jnp.isfinite(negd)
         z_sub = scan.z[zidx]                                         # [T,Km,2]
         zmask_sub = scan.mask[zidx] & valid_k
         M_eff = Km
@@ -281,42 +260,21 @@ def grow(state: TrackerState,
         z_sub = zmask_sub = zidx = None
         M_eff = M
 
-    if use_gate_kernel:
-        # Fused Pallas kernel: predict + gate + score in one VMEM pass.
-        from ..ops.gate_kernel import gate_and_score_pallas
-        pd_leaf = jnp.broadcast_to(state.tgt_pd[:, None], (T, L))
-        scores_f, x_bar_f, P_bar_f = gate_and_score_pallas(
-            state.leaf_x.reshape(T * L, 4),
-            state.leaf_P.reshape(T * L, 4, 4),
-            state.leaf_cnllr.reshape(T * L),
-            pd_leaf.reshape(T * L),
-            state.leaf_mask.reshape(T * L),
-            scan.z, scan.mask,
-            scan.time - state.time, 1.0,
-            float(pv.sigmaR_RADAR_tracker) ** 2,
-            params.eta2, params.lambda_ex)
-        cand_scores = scores_f.reshape(T, L, 1 + M)
-        x_bar = x_bar_f.reshape(T, L, 4)
-        P_bar = P_bar_f.reshape(T, L, 4, 4)
-        _, S, _, K, P_hat = k.precalc(C, R, x_bar, P_bar)
-        gate = cand_scores[:, :, 1:] < BIG * 0.5
-        zero_score = cand_scores[:, :, 0]                        # [T,L]
-    else:
-        from ..ops.ais_fused import radar_candidates_planes
-        (x_bar, P_bar, K, P_hat, gate, nllr_m) = radar_candidates_planes(
-            state, scan, params, z_sub=z_sub, zmask_sub=zmask_sub)
+    from ..ops.ais_fused import radar_candidates_planes
+    (x_bar, P_bar, K, P_hat, gate, nllr_m) = radar_candidates_planes(
+        state, scan, params, z_sub=z_sub, zmask_sub=zmask_sub)
 
-        # --- candidate scores ---------------------------------------
-        # slot 0: zero hypothesis; slots 1..M: radar measurements.
-        zero_score = jnp.where(
-            state.leaf_mask,
-            state.leaf_cnllr + k.nllr_missed(state.tgt_pd)[:, None],
-            BIG)                                                 # [T,L]
-        meas_score = jnp.where(gate,
-                               state.leaf_cnllr[:, :, None] + nllr_m,
-                               BIG)                              # [T,L,M]
-        cand_scores = jnp.concatenate(
-            [zero_score[:, :, None], meas_score], axis=2)        # [T,L,1+M]
+    # --- candidate scores -------------------------------------------
+    # slot 0: zero hypothesis; slots 1..M: radar measurements.
+    zero_score = jnp.where(
+        state.leaf_mask,
+        state.leaf_cnllr + k.nllr_missed(state.tgt_pd)[:, None],
+        BIG)                                                         # [T,L]
+    meas_score = jnp.where(gate,
+                           state.leaf_cnllr[:, :, None] + nllr_m,
+                           BIG)                                      # [T,L,M]
+    cand_scores = jnp.concatenate(
+        [zero_score[:, :, None], meas_score], axis=2)                # [T,L,1+M]
 
     use_ais = ais is not None
     Cn_r = cand_scores.shape[2]                                      # 1 + M_eff
@@ -344,8 +302,7 @@ def grow(state: TrackerState,
     # the radar and AIS blocks are reduced SEPARATELY and merged over
     # [T, 2L] — this avoids both materialising the concatenated
     # [T, L*(1+M)(1+G)] score tensor (~50 MB at bench shapes) and the
-    # 3x-wider top_k, the dominant AIS-on overhead after the plane
-    # rewrite (tools/profile_ais.py).  Indices are remapped to the
+    # 3x-wider top_k.  Indices are remapped to the
     # unified per-leaf slot layout documented in the module docstring.
     flat_radar = cand_scores.reshape(T, L * Cn_r)
     if use_ais:
@@ -363,19 +320,16 @@ def grow(state: TrackerState,
     else:
         # One WIDE top_k over [T, L*(1+M)].  The exact two-stage
         # alternative (per-leaf top-L over 1+M, then a [T, L*L] merge)
-        # was A/B'd on TPU at swarm shapes in round 4 and LOST 3.5x
-        # (38.8 vs 11.0 ms/scan grow; it wins ~20% on CPU) — the
-        # narrow-last-dim batched top_k tiles badly and forces the
-        # candidate planes to materialise.
+        # lost on the earlier accelerator because its narrow-last-dim
+        # batched top_k forced the candidate planes to materialise (not
+        # measured on the H100).
         neg_r, top_idx = jax.lax.top_k(-flat_radar, L)
         top_scores = -neg_r                                          # [T,L] ascending
-    # Fusion firewall (round-4 fix of the radar-only swarm anomaly):
-    # when the big top_k's outputs are consumed directly by the beam
-    # tail, XLA's scheduler makes a catastrophic choice at swarm shapes
-    # (T=1024, M=2048: radar-only grow ran 8x slower than AIS-on grow,
-    # whose merge top_k incidentally provided this barrier).  Forcing
-    # materialisation of the [T,L] beam here costs nothing and pins the
-    # fast schedule for both branches (tools/bisect_swarm.py).
+    # Fusion firewall: when the big top_k's outputs were consumed
+    # directly by the beam tail, the earlier accelerator's scheduler
+    # made a slow choice at swarm shapes (T=1024, M=2048).  Forcing
+    # materialisation of the [T,L] beam here pins one schedule for both
+    # branches.  Whether the H100 needs it is not measured yet.
     top_scores, top_idx = jax.lax.optimization_barrier(
         (top_scores, top_idx))
 
@@ -396,9 +350,8 @@ def grow(state: TrackerState,
     # Read the zero-hypothesis score from the SMALL [T,L] plane, never
     # by indexing the concatenated [T,L,1+M] score tensor: a gather on
     # the concat forces XLA to materialise it AND breaks the fusion of
-    # the candidate chain into the top_k input — measured round 3 as the
-    # difference between 6.8 and 53.7 ms/scan grow at swarm shapes
-    # (tools/bisect_grow.py; ~28x on CPU at bench shapes).
+    # the candidate chain into the top_k input (~28x slower grow on CPU
+    # at bench shapes; not measured on the H100).
     zscore = zero_score[jnp.arange(T), zero_parent]
     top_idx = top_idx.at[:, L - 1].set(
         jnp.where(force, zcand, top_idx[:, L - 1]))
@@ -430,10 +383,9 @@ def grow(state: TrackerState,
 
     # --- gather new leaf states -------------------------------------
     # Every parent-indexed payload is packed into ONE [T, L, D] tensor
-    # so the beam re-indexing is a single gather: on this TPU each
-    # separate gather/scatter op costs ~300-400 us of the scan budget
-    # regardless of size (measured round 2/3), and the naive tail did
-    # ~10 of them (x_bar/P_bar/K/P_hat + 5 history chains).  Integer
+    # so the beam re-indexing is a single gather instead of ~10 separate
+    # ones (x_bar/P_bar/K/P_hat + 5 history chains), each a kernel with
+    # a fixed launch cost.  Integer
     # channels ride along bitcast to f32 (pure data movement — no
     # arithmetic ever touches the bit patterns).
     i2f = lambda a: jax.lax.bitcast_convert_type(a, jnp.float32)     # noqa: E731
@@ -462,10 +414,11 @@ def grow(state: TrackerState,
     hist_x_p = pp[:, :, h0 + 4 * W:h0 + 8 * W].reshape(T, L, W, 4)
 
     # Residual of the selected candidate, recomputed directly (cheaper
-    # than carrying/gathering the [T,L,M,2] residual tensor, and the
-    # kernel path never materialises it).
+    # than carrying/gathering the [T,L,M,2] residual tensor, which the
+    # plane path never materialises).
     zt_p = scan.z[radar_m] - x_bar_p[..., :2]                        # [T,L,2]
-    x_radar = x_bar_p + jnp.einsum('tlij,tlj->tli', K_p, zt_p)
+    x_radar = x_bar_p + jnp.einsum('tlij,tlj->tli', K_p, zt_p,
+                                   precision=k.HIGHEST)
 
     new_x = jnp.where(is_zero[..., None], x_bar_p, x_radar)
     new_P = jnp.where(is_zero[..., None, None], P_bar_p, P_radar)
@@ -489,7 +442,8 @@ def grow(state: TrackerState,
         x_p = ap[:, :, 0:4]
         K_f = ap[:, :, 4:12].reshape(T, L, 4, 2)
         zt_f = scan.z[ais_m] - ap[:, :, 12:14]
-        x_f = x_p + jnp.einsum('tlij,tlj->tli', K_f, zt_f)
+        x_f = x_p + jnp.einsum('tlij,tlj->tli', K_f, zt_f,
+                               precision=k.HIGHEST)
         P_f = ap[:, :, 14:30].reshape(T, L, 4, 4)
         # Map the compressed slot back to the real AIS message index.
         ais_a = f2i(ap[:, :, 30])                                    # [T,L]

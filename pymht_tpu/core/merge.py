@@ -12,6 +12,7 @@ group's minimum-cnllr label and the others free their beam slots.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from .config import TrackerShapes, TrackerParams
@@ -59,11 +60,12 @@ def prune_similar(state: TrackerState, shapes: TrackerShapes,
                  & (rep[:, :, None] == jnp.arange(L)[None, None, :]))
     w = member_of.astype(jnp.float32)
     counts = w.sum(axis=1)                                       # [T,L(r)]
-    mean_x = jnp.einsum('tjr,tji->tri', w, state.leaf_x) \
+    hi = jax.lax.Precision.HIGHEST     # no TF32 rounding of states
+    mean_x = jnp.einsum('tjr,tji->tri', w, state.leaf_x, precision=hi) \
         / jnp.maximum(counts[..., None], 1.0)
-    mean_P = jnp.einsum('tjr,tjik->trik', w, state.leaf_P) \
+    mean_P = jnp.einsum('tjr,tjik->trik', w, state.leaf_P, precision=hi) \
         / jnp.maximum(counts[..., None, None], 1.0)
-    mean_c = jnp.einsum('tjr,tj->tr', w, state.leaf_cnllr) \
+    mean_c = jnp.einsum('tjr,tj->tr', w, state.leaf_cnllr, precision=hi) \
         / jnp.maximum(counts, 1.0)
 
     merged_group = is_rep & (counts > 1.5)                       # groups of >=2

@@ -155,11 +155,11 @@ def target_usage(state: TrackerState, shapes: TrackerShapes):
 # Clustering (reference tracker.py:961-974)
 # ----------------------------------------------------------------------
 
-# Sized with headroom over measured contested counts: the T=8192
-# saturation scene has 1081 contested slots (tools/probe_select_big.py)
-# — at 1024 the cap overflowed and every scan silently paid the full
-# [T, n_slots] fallback matmul (~13 TFLOP = ~150 ms of the 8192-target
-# select).  2048 keeps the compact matmul at ~137 GMAC.
+# Sized with headroom over the contested counts seen so far: the
+# T=8192 saturation scene has 1081 contested slots — at 1024 the cap
+# overflowed and every scan silently paid the full [T, n_slots]
+# fallback matmul (~13 TFLOP at T=8192).  2048 keeps the compact
+# matmul at ~137 GMAC.
 CLUSTER_COMPACT_CAP = 2048
 
 
@@ -248,8 +248,9 @@ def cluster(state: TrackerState, shapes: TrackerShapes, usage=None):
     n_slots=98k: 13 TFLOP -> 137 GMAC).  When more than C slots are
     contested the exact full matmul runs instead (lax.cond).
 
-    Two formulations by size (measured round 5 — scatters are ms-class
-    ops on this TPU, dense compares are not): below the [T, n_slots]
+    Two formulations by size (the dense compares were chosen where the
+    earlier accelerator made scatters ms-class; not measured on the
+    H100): below the [T, n_slots]
     int32 addressing wall, contestedness/compaction come from the
     dense usage tensor; above it (T=16384+), from exact
     min/max-target-id scatters (_contested_minmax) with the compact
@@ -428,8 +429,9 @@ def _enum_small_clusters(state: TrackerState, f: jnp.ndarray,
     bid_of_root = jnp.cumsum(is_root.astype(jnp.int32)) - 1  # [T]
     bucket_of = jnp.where(small, bid_of_root[jnp.clip(labels, 0, T - 1)], B)
 
-    # members [B, K]: target index or T (dummy) — dense build (a
-    # scatter here costs ~300us on TPU, the compare-argmax is free)
+    # members [B, K]: target index or T (dummy) — dense compare-argmax
+    # build instead of a scatter (scatter cost on the H100 not
+    # measured)
     hit = (small[None, None, :]
            & (bucket_of[None, None, :] == jnp.arange(B)[:, None, None])
            & (rank[None, None, :] == jnp.arange(K)[None, :, None]))
@@ -788,9 +790,9 @@ def _compact_lagrangian(f, Uc, lam0, spine, eff_tgt, eff_leaf,
 
     ``Uc [T, L, C]`` is the 0/1 usage of contested slot c by leaf (t,l),
     already masked to live leaves of participating targets.  Every loop
-    op is a small dense einsum/reduction — on TPU each body runs in
-    ~20us where the full-slot gather/scatter formulation costs ~400us
-    per op.  Semantics match select_lagrangian restricted to the
+    op is a small dense einsum/reduction over [CAP] columns instead of
+    the full-slot gather/scatter formulation (per-iteration cost on the
+    H100 not measured).  Semantics match select_lagrangian restricted to the
     participants: uncontested slots can never conflict (they are used by
     at most one participant through any leaf), so dualising only the
     contested set is exact.
@@ -970,12 +972,11 @@ def select_hybrid(state: TrackerState, shapes: TrackerShapes,
     f = leaf_scores(state, params)
     tb = jnp.arange(T)
 
-    # Formulation switch (measured, round 5): the dense/compare builds
-    # win EVERYWHERE they are representable — replacing them with
-    # min/max-target-id scatters cost swarm 11.4 -> 23.1 ms/scan and
-    # T=8192 select 70 -> 124 ms (each scatter is ~ms-class on this
-    # TPU, and the refactor used ~10).  The scatter path exists ONLY to
-    # cross the int32 addressing wall of [T, n_slots] at T=16384+.
+    # Formulation switch: the dense/compare builds are used wherever
+    # they are representable (they beat min/max-target-id scatters on
+    # the earlier accelerator; not measured on the H100).  The scatter
+    # path exists ONLY to cross the int32 addressing wall of
+    # [T, n_slots] at T=16384+.
     dense_ok = T * W * P <= (1 << 31)
     usage = _hist_usage(state, shapes) if dense_ok else None
     if labels_in is None:

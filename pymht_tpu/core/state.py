@@ -2,7 +2,7 @@
 
 The reference keeps each target as a Python tree of ``Target`` nodes with
 parent pointers (/root/reference/pymht/pyTarget.py:14-40).  Here the whole
-forest lives in padded HBM arrays: a hypothesis *leaf* is one row of the
+forest lives in padded device arrays: a hypothesis *leaf* is one row of the
 leaf table, and its ancestry is not a pointer chain but a label history —
 ``hist_meas``/``hist_ais``/``hist_mmsi`` columns aligned so that column
 ``W-1`` is the current scan for every target.  The tree is a trie of
@@ -24,12 +24,13 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .config import TrackerShapes, TrackerParams
+from ..utils.pytree import pytree_dataclass
 
 
-class TrackerState(struct.PyTreeNode):
+@pytree_dataclass
+class TrackerState:
     # Leaf table ------------------------------------------------------
     leaf_x: jnp.ndarray       # [T, L, 4] f32 — leaf state estimate
     leaf_P: jnp.ndarray       # [T, L, 4, 4] f32 — leaf covariance

@@ -15,7 +15,12 @@ _lib = None
 
 
 def _build():
-    subprocess.run(["make", "-C", _DIR], check=True, capture_output=True)
+    # build under a private name, then rename: processes that build at
+    # once never load a half-written library
+    tmp = f"libexact.so.{os.getpid()}"
+    subprocess.run(["make", "-C", _DIR, f"OUT={tmp}"], check=True,
+                   capture_output=True)
+    os.replace(os.path.join(_DIR, tmp), _LIB_PATH)
 
 
 def get_lib():

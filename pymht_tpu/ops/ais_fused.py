@@ -1,16 +1,13 @@
 """Fusion-friendly scalar-plane formulation of the AIS two-stage fusion.
 
 The einsum/dot formulation of the AIS candidate stages
-(tracker.py:417-552 in the reference; grow._ais_candidates here) lowers
-to dozens of small batched dot_generals and gathers, each of which is a
-separate kernel launch on TPU — measured round 3 at ~8 ms/scan of pure
-launch overhead at bench shapes (A=32), dwarfing the actual FLOPs.  The
-on-TPU A/B of the radar gate kernel (tools/gate_kernel_ab_r3.json)
-showed XLA's elementwise fusion BEATS hand-written Mosaic at these
-shapes, so the fix is to express the whole chain as scalar *planes*
-(one array per matrix entry, broadcast over the batch axes): every 4x4
-predict / Schur inverse / NIS / NLLR becomes a pure elementwise
-expression DAG that XLA fuses into a handful of kernels.
+(tracker.py:417-552 in the reference; grow._ais_candidates_einsum here)
+lowers to dozens of small batched dot_generals and gathers, each a
+separate kernel launch, dwarfing the actual FLOPs.  Here the whole chain
+is expressed as scalar *planes* (one array per matrix entry, broadcast
+over the batch axes): every 4x4 predict / Schur inverse / NIS / NLLR
+becomes a pure elementwise expression DAG that XLA fuses into a handful
+of kernels, with no matrix product (so no TF32 rounding either).
 
 Structure (exact same math as ops.kalman inv4x4/det4x4/nllr and
 models.pv.Phi/Q, reordered but formula-identical):
@@ -151,16 +148,11 @@ def ais_candidates_planes(state, scan, ais, params, G, n_targets=None,
     score-beam class as ``ais_per_leaf`` itself (the reference fuses
     every stage-1-gated message, tracker.py:417-552).
 
-    NEGATIVE RESULT (round 4, keep OFF on TPU): despite cutting the
-    [T,L,A] Schur DAG 16x in elements, the prefilter measured +11 ms
-    per grow at swarm shapes on TPU (34.7 vs 23.6,
-    tools/bisect_swarm.py BISECT_PREFILTER=8) — the mid-chain
-    gather/top_k pair fragments XLA's fusion of the AIS DAG, the same
-    failure mode as the round-4 beam-top_k anomaly.  Decision parity
-    is proven (tests/test_ais_fused.py::test_prefilter_matches_exact_
-    sweep); the path is retained for A/B reruns (on CPU it saves only
-    ~3% at the same shapes — the sweep is fusion-bound, not
-    arithmetic-bound, on both platforms).
+    Off by default: on the earlier accelerator the mid-chain
+    gather/top_k pair fragmented XLA's fusion of the AIS DAG and the
+    prefilter lost despite cutting the [T,L,A] Schur DAG 16x in
+    elements (not measured on the H100).  Decision parity is tested
+    (tests/test_ais_fused.py::test_prefilter_matches_exact_sweep).
 
     Returns (g_ok, gate2, pure_gate, nllr1g, fused_score,
              x_bar2, z_hat2, K2, P_hat2, ais_idx).
@@ -257,9 +249,8 @@ def ais_candidates_planes(state, scan, ais, params, G, n_targets=None,
         if G <= 4:
             # G-pass iterated argmin instead of lax.top_k: identical
             # selection (both break ties by lowest index), but pure
-            # masked reductions that fuse with the NIS producer —
-            # on-TPU A/B at swarm shapes: top_k 2.5 ms vs 1.7 ms
-            # (tools/bisect_swarm.py a_s1_argmax vs a_stage1).
+            # masked reductions that fuse with the NIS producer (not
+            # measured on the H100).
             idxs, vals = [], []
             for _ in range(G):
                 i = jnp.argmin(key, axis=2)

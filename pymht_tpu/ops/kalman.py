@@ -1,19 +1,28 @@
-"""Batched Kalman-filter primitives for TPU.
+"""Batched Kalman-filter primitives.
 
 This is the op contract of the reference's kalman module
 (/root/reference/pymht/utils/kalman.py:14-101): predict / precalc /
 residuals / NIS / NLLR, deliberately batched over arbitrary leading axes
-(nodes, targets, scenarios).  Two deltas from the reference, both
-TPU-motivated:
+(nodes, targets, scenarios).  Two deltas from the reference:
 
 * no ``np.linalg.inv``: innovation covariances are 2x2 (radar) or 4x4
   (AIS); both are inverted in closed form (4x4 via 2x2 block Schur
-  complement), keeping everything on the VPU with no LAPACK-style ops;
+  complement), as elementwise math with no LAPACK-style ops;
 * everything is shape-polymorphic over leading batch axes so the same
   functions serve single nodes, per-target leaf tables and whole
   scenario batches under vmap/jit.
+
+The Kalman products (predict, precalc, NIS, filter update) ask for
+``HIGHEST`` precision: at the default, a GPU with tensor cores may round
+float32 operands to TF32 (10-bit mantissa), which put their results
+45-14000x outside the float32 tolerances of chip_smoke.py phase b
+against the float64 oracle on an H100.  The 2x2-block products of
+``inv4x4``/``det4x4`` met their tolerance at the default.
 """
+import jax
 import jax.numpy as jnp
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 _LOG2PI = float(jnp.log(2.0 * jnp.pi))
 
@@ -94,8 +103,9 @@ def predict(A, Q, x, P):
     A: (4, 4), Q: (4, 4); x: (..., 4), P: (..., 4, 4).
     Returns x_bar (..., 4), P_bar (..., 4, 4).
     """
-    x_bar = jnp.einsum('ij,...j->...i', A, x)
-    P_bar = jnp.einsum('ij,...jk,lk->...il', A, P, A) + Q
+    x_bar = jnp.einsum('ij,...j->...i', A, x, precision=HIGHEST)
+    P_bar = jnp.einsum('ij,...jk,lk->...il', A, P, A,
+                       precision=HIGHEST) + Q
     return x_bar, P_bar
 
 
@@ -106,13 +116,16 @@ def precalc(C, R, x_bar, P_bar):
     Returns z_hat (..., m), S (..., m, m), S_inv, K (..., n, m),
     P_hat (..., n, n).
     """
-    z_hat = jnp.einsum('ij,...j->...i', C, x_bar)
-    PCt = jnp.einsum('...ij,kj->...ik', P_bar, C)          # (..., n, m)
-    S = jnp.einsum('ij,...jk->...ik', C, PCt) + R          # (..., m, m)
+    z_hat = jnp.einsum('ij,...j->...i', C, x_bar, precision=HIGHEST)
+    PCt = jnp.einsum('...ij,kj->...ik', P_bar, C,
+                     precision=HIGHEST)                     # (..., n, m)
+    S = jnp.einsum('ij,...jk->...ik', C, PCt,
+                   precision=HIGHEST) + R                   # (..., m, m)
     S_inv = inv_psd(S)
-    K = PCt @ S_inv                                         # (..., n, m)
+    K = jnp.matmul(PCt, S_inv, precision=HIGHEST)           # (..., n, m)
     # Joseph-free form, like the reference: P_hat = P_bar - K C P_bar
-    P_hat = P_bar - jnp.einsum('...ij,jk,...kl->...il', K, C, P_bar)
+    P_hat = P_bar - jnp.einsum('...ij,jk,...kl->...il', K, C, P_bar,
+                               precision=HIGHEST)
     return z_hat, S, S_inv, K, P_hat
 
 
@@ -130,7 +143,8 @@ def nis(z_tilde, S_inv):
 
     z_tilde: (..., M, m), S_inv: (..., m, m) -> (..., M).
     """
-    return jnp.einsum('...mi,...ij,...mj->...m', z_tilde, S_inv, z_tilde)
+    return jnp.einsum('...mi,...ij,...mj->...m', z_tilde, S_inv, z_tilde,
+                      precision=HIGHEST)
 
 
 def filter_update(x_bar, K, z_tilde):
@@ -139,7 +153,8 @@ def filter_update(x_bar, K, z_tilde):
 
     x_bar: (..., n), K: (..., n, m), z_tilde: (..., M, m) -> (..., M, n).
     """
-    return x_bar[..., None, :] + jnp.einsum('...nm,...Mm->...Mn', K, z_tilde)
+    return x_bar[..., None, :] + jnp.einsum('...nm,...Mm->...Mn', K, z_tilde,
+                                            precision=HIGHEST)
 
 
 def nllr(lambda_ex, P_d, S, nis_values):

@@ -11,7 +11,7 @@ Here the LP relaxation of the *global* problem (all clusters at once — the
 blocks are independent, so one padded solve covers every cluster) is
 solved on-device with an infeasible-start primal-dual interior-point
 method.  The per-iteration work is a Cholesky factorisation of the
-constraint-space normal equations — dense, fixed-shape, MXU-friendly.
+constraint-space normal equations — dense and fixed-shape.
 Assignment-type polytopes like this one have LP relaxations that are
 integral in almost all instances; ``round_and_repair`` turns the
 fractional solution into a feasible integral one, and tests validate the

@@ -4,7 +4,7 @@ BASELINE config 5's pattern: the target axis partitions across chips
 ("cluster" mesh axis); each shard decodes its own targets against shared
 dual prices, and the cross-chip traffic is an all-reduce of the
 slot-usage counts (the Lagrangian subgradient) plus per-slot min
-reductions for the conflict-repair keep decision — all over ICI.  The
+reductions for the conflict-repair keep decision.  The
 dual update is replicated deterministically on every shard, so prices
 never need a broadcast.
 
@@ -23,8 +23,8 @@ Two implementations:
   [CAP] columns, and every Lagrangian iteration then all-reduces only a
   [CAP] usage vector (+[CAP] pmin keys in repair rounds) — ~1 KB/iter
   instead of the full-slot formulation's [n_slots] ~52 KB vectors, and
-  NO scatter into the n_slots space anywhere (the op class the
-  single-chip path abandoned for ~400 us/op on TPU).  An up-front
+  NO scatter into the n_slots space anywhere (the single-chip path
+  avoids that op class too).  An up-front
   fast path (one psum'd dense usage count) skips the whole loop when
   the per-target independent optima are globally conflict-free — the
   dominant case on low-conflict scans, mirroring
@@ -89,7 +89,7 @@ def distributed_lagrangian(state, shapes: TrackerShapes,
         s = jnp.where(tgt[:, None], s, n_slots)
         cnt = jnp.zeros((n_slots + 1,), jnp.float32)
         cnt = cnt.at[s.reshape(-1)].add(1.0)
-        # THE collective: global usage = sum of shard usages (ICI ring).
+        # THE collective: global usage = sum of shard usages.
         return jax.lax.psum(cnt[:n_slots], axis_name)
 
     def obj_of(sel):
@@ -280,9 +280,8 @@ def distributed_select_compact(state, shapes: TrackerShapes,
     def slow(_):
         # contested set: slots used by >= 2 targets GLOBALLY.  Dense
         # formulation (psum'd per-slot target counts) wherever the
-        # local [T, n_slots] usage is representable — the round-5
-        # measurement: scatter ops are ms-class on TPU, dense compares
-        # are not.  Beyond the int32 addressing wall: exact min/max
+        # local [T, n_slots] usage is representable (as in
+        # core/select.py).  Beyond the int32 addressing wall: exact min/max
         # GLOBAL-target-id scatters + one pmin/pmax pair.
         S = W * Pcols
         eff_leaf = state.leaf_mask & state.tgt_mask[:, None]

@@ -1,19 +1,17 @@
-"""Multi-host runtime: ``jax.distributed`` init + hybrid ICI/DCN meshes.
+"""Multi-host runtime: ``jax.distributed`` init + process-major meshes.
 
 SURVEY §2.3: the reference is a single-process library, so its latent
 scaling story stops at one machine.  Here the multi-host runtime is
 explicit:
 
-* ``initialize``   — process bootstrap (coordinator handshake).  On TPU
-  pods every argument is auto-detected from the environment; for
-  multi-process CPU testing (and non-pod deployments) pass/env the
-  coordinator address + process count.
+* ``initialize``   — process bootstrap (coordinator handshake).  Pass
+  (or set in the environment) the coordinator address, process count
+  and process id; under SLURM JAX detects them itself.
 * ``hybrid_mesh``  — device mesh whose 'scenario' axis spans processes
-  (DCN: independent Monte-Carlo scenarios need no cross-talk, so they
-  ride the slow links) and whose 'cluster' axis spans each process's
-  local devices (ICI: the selection collectives psum/pmin every
-  iteration, so they must stay on fast links).  This is the
-  scaling-book axis-ordering recipe.
+  (independent Monte-Carlo scenarios need no cross-talk, so they ride
+  the links between hosts) and whose 'cluster' axis spans each
+  process's local devices (the selection collectives psum/pmin every
+  iteration, so they stay on the links inside one host).
 * ``gather_local_measurements`` — the measurement exchange: every host
   ingests its local radar feed, and all cluster shards must gate
   against the union.  A fixed-width all-gather of the per-host padded
@@ -43,7 +41,7 @@ def initialize(coordinator_address: Optional[str] = None,
 
     Arguments fall back to ``PYMHT_COORDINATOR`` / ``PYMHT_NUM_PROCS`` /
     ``PYMHT_PROC_ID`` env vars, then to JAX's own cluster
-    auto-detection (TPU pods, SLURM).  Returns True if a multi-process
+    auto-detection under SLURM.  Returns True if a multi-process
     runtime was initialised, False for the single-process no-op (so
     callers can share one code path).
     """
@@ -56,11 +54,9 @@ def initialize(coordinator_address: Optional[str] = None,
     if num_processes is not None and num_processes <= 1:
         return False
     if coordinator_address is None and num_processes is None:
-        # TPU-pod / SLURM auto-detection: initialize() with no args only
-        # when the environment actually smells like a cluster.
-        if not any(k in os.environ for k in
-                   ("TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS",
-                    "SLURM_JOB_ID")):
+        # SLURM auto-detection: initialize() with no args only inside a
+        # SLURM job.
+        if "SLURM_JOB_ID" not in os.environ:
             return False
         jax.distributed.initialize()
         return jax.process_count() > 1
@@ -73,8 +69,8 @@ def initialize(coordinator_address: Optional[str] = None,
 
 def hybrid_mesh(scenario: Optional[int] = None,
                 cluster: Optional[int] = None) -> Mesh:
-    """('scenario', 'cluster') mesh with scenario over DCN (processes)
-    and cluster over ICI (each process's local devices).
+    """('scenario', 'cluster') mesh with scenario over processes and
+    cluster over each process's local devices.
 
     Defaults: scenario = process count, cluster = local device count.
     Single-process: a flat mesh over the local devices (scenario=1
@@ -84,25 +80,12 @@ def hybrid_mesh(scenario: Optional[int] = None,
     n_local = jax.local_device_count()
     scenario = n_proc if scenario is None else scenario
     cluster = (n_proc * n_local) // scenario if cluster is None else cluster
-    n_slices = len({getattr(d, "slice_index", 0) for d in jax.devices()})
-    if n_proc > 1 and n_slices > 1:
-        # TPU pod: respect the actual ICI slice topology.
-        from jax.experimental import mesh_utils
-        devs = mesh_utils.create_hybrid_device_mesh(
-            mesh_shape=(scenario // n_proc if scenario >= n_proc else 1,
-                        cluster),
-            dcn_mesh_shape=(min(scenario, n_proc),
-                            1 if cluster <= n_local else cluster // n_local),
-        ).reshape(scenario, cluster)
-    else:
-        # Process-major ordering: each process's local devices land
-        # contiguously along the cluster axis, so with scenario=n_proc
-        # the selection collectives never cross processes.  (CPU
-        # multi-process test path, and the single-process fallback.)
-        ordered = sorted(jax.devices(),
-                         key=lambda d: (d.process_index, d.id))
-        devs = np.array(ordered[:scenario * cluster]).reshape(
-            scenario, cluster)
+    # Process-major ordering: each process's local devices land
+    # contiguously along the cluster axis, so with scenario=n_proc the
+    # selection collectives never cross processes.  The cards of one
+    # host are joined all to all, so no finer topology matters.
+    ordered = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
+    devs = np.array(ordered[:scenario * cluster]).reshape(scenario, cluster)
     return Mesh(devs, ("scenario", "cluster"))
 
 

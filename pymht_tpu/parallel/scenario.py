@@ -8,8 +8,8 @@ structure becomes explicit mesh axes here:
   collectives cross this axis.
 * ``cluster``  — the target axis within one scenario (model-parallel-
   like): targets shard across chips; GSPMD inserts the collectives the
-  selection needs (all-reduce of Lagrangian usage counts / duals over
-  ICI, all-gather for the cluster-adjacency matmul).
+  selection needs (all-reduce of Lagrangian usage counts / duals,
+  all-gather for the cluster-adjacency matmul).
 
 Everything is expressed as sharding annotations on one jitted step —
 the XLA-collective (scaling-book) recipe rather than hand-written

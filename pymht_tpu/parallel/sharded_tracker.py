@@ -7,7 +7,7 @@ The forest's target axis partitions across the 'cluster' mesh axis
 * grow     — embarrassingly target-parallel (each shard grows its own
              targets against the replicated scan);
 * select   — distributed Lagrangian with psum usage counts / pmin
-             repair keys over ICI (distributed_select.py);
+             repair keys (distributed_select.py);
 * terminate / N-scan prune — target-local;
 * initiate — replicated compute on the globally-unused measurements
              (identical on every shard), with new targets dealt
@@ -193,7 +193,7 @@ def make_sharded_tracker_step(mesh: Mesh, shapes: TrackerShapes,
                                  select_impl=select_impl,
                                  select_kw=select_kw)
 
-    def run(state, init_state, scan, ais):
+    def build(state, init_state, scan, ais):
         sspec = jax.tree_util.tree_map(_state_spec, state)
         rep_i = jax.tree_util.tree_map(lambda x: P(), init_state)
         rep_s = jax.tree_util.tree_map(lambda x: P(), scan)
@@ -207,9 +207,19 @@ def make_sharded_tracker_step(mesh: Mesh, shapes: TrackerShapes,
                           confirmed_mask=P(axis_name),
                           confirmed_x=P(axis_name),
                           confirmed_meas=P(axis_name)))
-        sm = shard_map(fn, mesh=mesh,
-                       in_specs=(sspec, rep_i, rep_s, rep_a),
-                       out_specs=out_specs)
-        return jax.jit(sm)(state, init_state, scan, ais)
+        return jax.jit(shard_map(fn, mesh=mesh,
+                                 in_specs=(sspec, rep_i, rep_s, rep_a),
+                                 out_specs=out_specs))
+
+    # one jitted program per input structure: a fresh jit per call would
+    # trace and compile the whole step again every scan
+    steps = {}
+
+    def run(state, init_state, scan, ais):
+        args = (state, init_state, scan, ais)
+        key = jax.tree_util.tree_structure(args)
+        if key not in steps:
+            steps[key] = build(*args)
+        return steps[key](*args)
 
     return run

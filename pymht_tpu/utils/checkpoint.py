@@ -23,7 +23,7 @@ from ..core.tracker import Tracker, TrackArchive
 
 def _tree_to_dict(prefix, tree):
     flat = {}
-    # dataclass-ordered flatten: flax PyTreeNodes flatten in field order.
+    # pytree_dataclass flattens in field order (utils/pytree.py).
     leaves = jax.tree_util.tree_leaves(tree)
     names = list(type(tree).__dataclass_fields__.keys())
     assert len(leaves) == len(names)

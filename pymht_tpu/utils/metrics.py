@@ -20,6 +20,39 @@ def truth_positions(sim_list):
                      for sample in sim_list])
 
 
+def scan_coverage(track_x, track_mask, truth, gate=20.0):
+    """Coverage and rms of per-scan selected tracks against the truth.
+
+    ``track_x [S, T, 4]`` / ``track_mask [S, T]`` are the stacked
+    ``StepOutputs`` of ``scan_many``; ``truth [S, K, 4]``.  Each scan
+    matches truth targets to tracks ONE-TO-ONE (Hungarian, gated at
+    ``gate`` metres) -- nearest-track matching would let one track
+    cover several nearby truths in a dense scene.  Returns
+    (matched fraction of the S*K truth samples, rms position error of
+    the matched pairs).
+    """
+    from scipy.optimize import linear_sum_assignment
+    track_x = np.asarray(track_x)
+    track_mask = np.asarray(track_mask)
+    truth = np.asarray(truth)
+    matched, sq = 0, []
+    for i in range(truth.shape[0]):
+        tp = track_x[i][track_mask[i]][:, :2]
+        if not len(tp):
+            continue
+        d = np.linalg.norm(truth[i][:, None, :2] - tp[None, :, :], axis=2)
+        # ungated pairs all cost ``gate``: the assignment never prefers
+        # them over a gated pair, and they are discarded below
+        ri, ci = linear_sum_assignment(np.minimum(d, gate))
+        dm = d[ri, ci]
+        hit = dm < gate
+        matched += int(hit.sum())
+        sq.extend((dm[hit] ** 2).tolist())
+    coverage = matched / float(truth.shape[0] * truth.shape[1])
+    rms = float(np.sqrt(np.mean(sq))) if sq else float('nan')
+    return coverage, rms
+
+
 def evaluate(tracker, sim_list, radar_period, match_threshold=20.0,
              init_time=None, p0=None, radar_range=None):
     """Compare a finished run against ground truth.

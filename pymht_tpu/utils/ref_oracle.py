@@ -5,7 +5,7 @@ This is a deliberately slow, readable numpy reimplementation of the
 reference pipeline — full hypothesis trees (no beam), exact per-cluster
 ILP via scipy/HiGHS instead of OR-Tools CBC, exact GNN via
 scipy.optimize.linear_sum_assignment instead of the external Cython
-munkres — so tests can assert that the TPU tracker makes the same
+munkres — so tests can assert that the device tracker makes the same
 decisions (selected global hypothesis, confirm scans, kill scans) on
 whole scenarios:
 

@@ -9,7 +9,7 @@ scans, and class-A/B AIS reporting with reception probability, accuracy
 flag and optional MMSI scrambling.
 
 Uses numpy's Generator API (explicitly seeded) — scenario generation is
-host-side workload creation, not the TPU compute path.  A device-batched
+host-side workload creation, not the device compute path.  A device-batched
 variant for Monte-Carlo benchmarks lives in ``parallel/scenario.py``.
 """
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Per-phase runtime observability.
 
 The reference hand-rolls tic/toc dicts around its 7 pipeline phases and
-prints a coloured table (tracker.py:87-98, 1425-1464 printTimeLog).  The
-TPU tracker compiles the whole pipeline into one program, so phase
+prints a coloured table (tracker.py:87-98, 1425-1464 printTimeLog).  This
+tracker compiles the whole pipeline into one program, so phase
 timing works differently:
 
 * ``RuntimeLog`` — per-scan wall-clock of the fused step plus the

@@ -87,8 +87,8 @@ assert abs(g_scalar - ref_scalar) <= 1e-3 * (1 + abs(ref_scalar)), \
     (g_scalar, ref_scalar)
 
 # --- 3. explicit-collective (shard_map psum/pmin) tracker step with the
-# cluster axis SPANNING the two processes (the DCN leg of the v5e-16
-# selection-collective story — round-2 verdict item 6) -------------------
+# cluster axis SPANNING the two processes (the selection collectives
+# crossing hosts) ------------------------------------------------------
 from jax.sharding import Mesh  # noqa: E402
 from pymht_tpu.models import pv  # noqa: E402
 from pymht_tpu.core.state import empty_state, insert_targets  # noqa: E402

@@ -40,7 +40,7 @@ def _conflicted_state(seed=0):
         rng.normal(0, 100, (4, 2))]).astype(np.float32)
     scan = Scan(z=jnp.asarray(z), mask=jnp.ones(16, bool),
                 time=jnp.asarray(2.5, jnp.float32))
-    g = grow(state, scan, None, SHAPES, PARAMS, use_gate_kernel=False)
+    g = grow(state, scan, None, SHAPES, PARAMS)
     return g.state
 
 
@@ -64,7 +64,7 @@ def _monster_state(seed=3):
         rng.normal(0, 150, (12, 2))]).astype(np.float32)
     scan = Scan(z=jnp.asarray(z), mask=jnp.ones(16, bool),
                 time=jnp.asarray(2.5, jnp.float32))
-    g = grow(state, scan, None, SHAPES, PARAMS, use_gate_kernel=False)
+    g = grow(state, scan, None, SHAPES, PARAMS)
     return g.state
 
 
@@ -372,7 +372,7 @@ def test_compact_fast_path_conflict_free():
     mask = np.zeros(16, bool); mask[:8] = True
     scan = Scan(z=jnp.asarray(zp), mask=jnp.asarray(mask),
                 time=jnp.asarray(2.5, jnp.float32))
-    g = grow(state, scan, None, SHAPES, PARAMS, use_gate_kernel=False)
+    g = grow(state, scan, None, SHAPES, PARAMS)
     st = g.state
 
     from pymht_tpu.core.select import leaf_scores, _independent_best

@@ -1,49 +1,5 @@
-"""E2E equivalence of grow() with and without the fused Pallas kernel
-(interpreter mode on CPU)."""
-import numpy as np
-import jax.numpy as jnp
-
-from pymht_tpu.core.config import TrackerShapes, TrackerParams
-from pymht_tpu.core.state import empty_state, insert_targets
-from pymht_tpu.core.grow import Scan, grow
-from pymht_tpu.models import pv
-
-SHAPES = TrackerShapes(max_targets=4, max_leaves=8, max_meas=16,
-                       max_ais=2, window=5)
-PARAMS = TrackerParams(radar_period=2.5, P_d=0.85, lambda_phi=1e-5,
-                       lambda_nu=1e-5, N=3)
-
-
-def test_grow_kernel_matches_reference_path():
-    rng = np.random.default_rng(0)
-    state = empty_state(SHAPES, PARAMS)
-    xs = rng.normal(0, 50, (4, 4)).astype(np.float32)
-    state = insert_targets(state, jnp.asarray(xs),
-                           jnp.broadcast_to(pv.P0, (4, 4, 4)),
-                           jnp.asarray(np.array([True, True, True, False])),
-                           jnp.zeros(4, jnp.int32), jnp.asarray(0.0), PARAMS)
-    z = np.concatenate([xs[:3, :2] + xs[:3, 2:] * 2.5
-                        + rng.normal(0, 1, (3, 2)),
-                        rng.normal(0, 60, (13, 2))]).astype(np.float32)
-    scan = Scan(z=jnp.asarray(z), mask=jnp.ones(16, bool),
-                time=jnp.asarray(2.5, jnp.float32))
-
-    g_ref = grow(state, scan, None, SHAPES, PARAMS, use_gate_kernel=False)
-    g_ker = grow(state, scan, None, SHAPES, PARAMS, use_gate_kernel=True)
-
-    np.testing.assert_array_equal(np.asarray(g_ref.state.leaf_mask),
-                                  np.asarray(g_ker.state.leaf_mask))
-    np.testing.assert_array_equal(np.asarray(g_ref.state.hist_meas),
-                                  np.asarray(g_ker.state.hist_meas))
-    np.testing.assert_array_equal(np.asarray(g_ref.used_meas),
-                                  np.asarray(g_ker.used_meas))
-    lm = np.asarray(g_ref.state.leaf_mask)
-    np.testing.assert_allclose(np.asarray(g_ker.state.leaf_x)[lm],
-                               np.asarray(g_ref.state.leaf_x)[lm],
-                               rtol=1e-4, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(g_ker.state.leaf_cnllr)[lm],
-                               np.asarray(g_ref.state.leaf_cnllr)[lm],
-                               rtol=1e-4, atol=1e-3)
+"""grow()'s spatial pre-gate (shapes.radar_cand_width) against the
+exact full-M path."""
 
 
 def test_pregate_matches_exact_grow():
